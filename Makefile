@@ -12,7 +12,7 @@ test:              ## run the conformance suite on CPU
 test-fast:
 	JAX_PLATFORMS=cpu $(PY) -m pytest tests/ -q -x -k "not installation"
 
-bench:             ## headline benchmark (one JSON line; runs on the TPU)
+bench:             ## headline benchmark (one JSON line; needs a GPU)
 	$(PY) bench.py
 
 bench-all:         ## per-op host-API sweep

@@ -1,15 +1,15 @@
-"""simdutf_tpu — a TPU-native Unicode validation/transcoding + base64 library.
+"""simdutf_tpu — an accelerator Unicode validation/transcoding + base64 library.
 
-A from-scratch JAX/Pallas re-imagining of the capabilities of simdutf
+A from-scratch JAX re-imagining of the capabilities of simdutf
 (reference: WojciechMula/simdutf v7.0.0): validating transcode across
 ASCII / Latin1 / UTF-8 / UTF-16LE/BE / UTF-32, validation with exact
 first-error location, character/length counting, encoding detection, and
-WHATWG forgiving-base64 — running on TPUs via Pallas kernels and XLA, with
-data-parallel sharding across chips/hosts and collective error reduction.
+WHATWG forgiving-base64 — compiled by XLA for the GPU, with data-parallel
+sharding across devices and collective error reduction.
 
 Tiers (selected at runtime, like the reference's CPU backends):
-  * ``pallas``   — hand-tuned TPU kernels (the 'icelake' of this library)
-  * ``xla``      — pure jax.numpy, portable to CPU/GPU/TPU
+  * ``xla``      — jax.numpy/lax compiled by XLA (the device tier)
+  * ``cnative``  — compiled C scalar code on the host, when built
   * ``fallback`` — vectorized NumPy on host
 
 Quick start::

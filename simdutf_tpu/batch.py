@@ -1,9 +1,9 @@
 """Batch API: process many byte strings in one device program.
 
-The reference is a one-buffer-per-call library; serving workloads on TPU
-want the opposite — a batch of documents validated/measured/transcoded in
-a single vmapped program so the chip is fed one large launch instead of
-thousands of small ones. This is the TPU-native extension of the
+The reference is a one-buffer-per-call library; serving workloads on an
+accelerator want the opposite — a batch of documents validated, measured
+or transcoded in a single vmapped program, so the device is fed one large
+launch instead of thousands of small ones. This is the device-side extension of the
 reference's "users shard across threads" scaling story
 (benchmarks/threaded.cpp).
 
@@ -14,9 +14,11 @@ cache small) with a per-row length vector; results come back per-row.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 
 from .errors import Result, error_code as ec
@@ -125,55 +127,29 @@ _j_transcode_batch = jax.jit(
 )
 
 
-def _item_rows_view(buf: np.ndarray, n_items: int, view_dtype, lanes: int,
-                    rows_mult: int):
-    """Kernel-row view of the item rows of a packed matrix.
-
-    The pooled buffer's PAD rows (beyond ``n_items``) hold stale bytes
-    from earlier calls and must not reach the whole-matrix kernels, so
-    the view covers only the rows spanning the items, rounded up to the
-    kernel's ``rows_mult`` grid — the round-up slack (< rows_mult kernel
-    rows, at most 32 KiB) is zeroed in place. A batch smaller than one
-    kernel tile is pad-copied into a fresh tile instead (bounded,
-    <= rows_mult kernel rows)."""
-    B, L = buf.shape
-    row_bytes = lanes * view_dtype().itemsize
-    total_rows = B * L * buf.dtype.itemsize // row_bytes
-    items_rows = -(-n_items * L * buf.dtype.itemsize // row_bytes)
-    used = -(-items_rows // rows_mult) * rows_mult
-    flat = buf.reshape(-1)
-    elems_per_row = row_bytes // buf.dtype.itemsize
-    if used > total_rows:
-        tile = np.zeros(used * elems_per_row, buf.dtype)
-        tile[: n_items * L] = flat[: n_items * L]
-        return tile.view(view_dtype).reshape(-1, lanes)
-    flat[n_items * L: used * elems_per_row] = 0  # round-up slack only
-    return flat[: used * elems_per_row].view(view_dtype).reshape(-1, lanes)
+@functools.partial(jax.jit, static_argnames=("dtype",))
+def _j_ascii_recode(buf, lens, dtype):
+    """Whole-batch ASCII fast path: every in-range unit < 0x80 makes the
+    transcode a per-unit width change at a fixed 1:1 rate, so item i's
+    output lands in row i (the reference's per-block is_ascii
+    short-circuit, generic/utf8_to_utf16/utf8_to_utf16.h:237-240, at
+    batch scale). Returns (rows with zeros past each length, all_ascii)."""
+    in_r = jnp.arange(buf.shape[1])[None, :] < lens[:, None]
+    ok = ~jnp.any((buf >= 0x80) & in_r)
+    return jnp.where(in_r, buf, 0).astype(dtype), ok
 
 
-def _ascii_widen_batch(buf: np.ndarray, lens: np.ndarray, n_items: int):
-    """Whole-batch ASCII fast path for utf8->utf16: the packed (B, L)
-    matrix is already the widen kernel's memory layout, and the fixed 1:2
-    rate keeps every row self-aligned (item i's units land at u16 offset
-    i*L). A strided peek avoids a wasted launch; the kernel's own flag is
-    the validity proof (reference's per-block is_ascii short-circuit,
-    generic/utf8_to_utf16/utf8_to_utf16.h:237-240, at batch scale).
-    Returns a (n_items, L) uint16 matrix or None."""
-    B, L = buf.shape
-    items = buf[:n_items]
-    sample = items[:, :: max(1, L // 64)]
+def _ascii_batch(buf: np.ndarray, lens: np.ndarray, n_items: int, dtype):
+    """(n_items, L) matrix of ``dtype`` units when every item is ASCII,
+    else None. A strided host peek at the item rows skips the launch for
+    most non-ASCII batches; the device pass is the proof."""
+    sample = buf[:n_items, :: max(1, buf.shape[1] // 64)]
     if sample.size == 0 or int(sample.max()) >= 0x80:
         return None
-    from .kernels import transcode as ktr
-
-    x16 = _item_rows_view(buf, n_items, np.int16, ktr.W16, ktr.RU)
-    out, flag = ktr.ascii_widen_utf16(x16, big_endian=False)
-    if int(flag):
+    out, ok = _j_ascii_recode(buf, lens, dtype=dtype)
+    if not bool(ok):
         return None
-    return (
-        np.asarray(out).view(np.uint16).reshape(-1)[: n_items * L]
-        .reshape(n_items, L)
-    )
+    return np.asarray(out)[:n_items]
 
 
 def convert_utf8_to_utf16le_batch(
@@ -184,7 +160,7 @@ def convert_utf8_to_utf16le_batch(
     if not items:
         return []
     buf, lens = _pack(items)
-    fast = _ascii_widen_batch(buf, lens, len(items))
+    fast = _ascii_batch(buf, lens, len(items), jnp.uint16)
     if fast is not None:
         return [
             (Result(ec.SUCCESS, int(lens[i])),
@@ -238,34 +214,13 @@ def validate_utf16le_batch(items: Sequence[bytes]) -> list[Result]:
     ]
 
 
-def _ascii_narrow_batch(buf: np.ndarray, lens: np.ndarray, n_items: int):
-    """Whole-batch ASCII fast path for utf16->utf8 (fixed 2:1 rate; item
-    i's bytes land at offset i*L). Returns a (n_items, L) uint8 matrix or
-    None."""
-    B, L = buf.shape
-    items = buf[:n_items]
-    sample = items[:, :: max(1, L // 64)]
-    if sample.size == 0 or int(sample.max()) >= 0x80:
-        return None
-    from .kernels import transcode as ktr
-
-    x32 = _item_rows_view(buf, n_items, np.int32, ktr.W16, ktr.RU)
-    out, flag = ktr.ascii_narrow_utf8(x32, big_endian=False)
-    if int(flag):
-        return None
-    return (
-        np.asarray(out).view(np.uint8).reshape(-1)[: n_items * L]
-        .reshape(n_items, L)
-    )
-
-
 def convert_utf16le_to_utf8_batch(
     items: Sequence[bytes],
 ) -> list[tuple[Result, bytes]]:
     if not items:
         return []
     buf, lens = _pack16(items)
-    fast = _ascii_narrow_batch(buf, lens, len(items))
+    fast = _ascii_batch(buf, lens, len(items), jnp.uint8)
     if fast is not None:
         return [
             (Result(ec.SUCCESS, int(lens[i])),
@@ -288,8 +243,6 @@ def convert_utf16le_to_utf8_batch(
 
 # --- base64 batch --------------------------------------------------------------
 
-import functools  # noqa: E402
-
 from .errors import FullResult  # noqa: E402
 from .golden import base64_impl as gb  # noqa: E402
 from .ops import base64_ops  # noqa: E402
@@ -305,10 +258,7 @@ def _j_b64dec_batch(chars, lens, url, both):
 
 @functools.partial(jax.jit, static_argnames=("url",))
 def _j_b64enc_batch(data, url):
-    # vmapped rows stay on the minor-dim form (a pallas_call under vmap
-    # is not worth it for short batch rows; corpus-scale single buffers
-    # go through encode_bulk's word-plane kernel instead)
-    return jax.vmap(lambda d: base64_ops.encode_small(d, url))(data)
+    return jax.vmap(lambda d: base64_ops.encode_bulk(d, url))(data)
 
 
 def base64_to_binary_batch(

@@ -88,7 +88,7 @@ def trim_partial(words: np.ndarray, big_endian: bool) -> int:
 
 def to_well_formed(words: np.ndarray, big_endian: bool) -> np.ndarray:
     """U+FFFD substitution of ill-formed surrogates (scalar/utf16.h:141-166).
-    Pure elementwise with a one-unit lookback — very TPU friendly."""
+    Pure elementwise with a one-unit lookback."""
     w = _native(words, big_endian)
     n = int(w.shape[0])
     if n == 0:

@@ -3,7 +3,7 @@
 Mirrors the reference's ``simdutf::implementation`` abstract class
 (include/simdutf/implementation.h:3302-5066): one object exposing the whole
 method surface, so a single conformance suite can run against every
-registered tier (fallback / xla / pallas), exactly like the reference's
+registered tier (fallback / cnative / xla), exactly like the reference's
 per-implementation test loop (tests/helpers/test.cpp).
 
 Array conventions at this layer:
@@ -27,7 +27,7 @@ from .golden import base64_impl as gb64
 class Implementation:
     """Base class: every method delegates to the NumPy golden tier.
 
-    Subclasses (XLA / Pallas) override the hot entry points and inherit the
+    Subclasses (XLA, cnative) override the hot entry points and inherit the
     rest, mirroring how reference backends inherit scalar fallbacks.
     """
 

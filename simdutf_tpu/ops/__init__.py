@@ -2,7 +2,7 @@
 
 These are the device-native building blocks (static shapes, scalar lengths,
 mask algebra, classify -> exclusive-prefix-scan -> scatter) that XLA lowers
-to TPU/CPU/GPU. JAX users can call them directly inside jit on device
+for the GPU (or the CPU in tests). JAX users can call them directly inside jit on device
 arrays; the host API reaches them through ops.impl.XLAImplementation.
 """
 

@@ -21,7 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..golden import base64_impl as gb
-from .common import BIG, excl_scan, positions, scatter_writes
+from .common import BIG, excl_scan, positions, scatter_writes, u8_words
 
 
 _ALPHA_CACHE = None
@@ -41,8 +41,7 @@ def alphabet_for(options: int) -> jnp.ndarray:
 
 
 def classify_chars(c: jnp.ndarray, url: bool, both: bool) -> jnp.ndarray:
-    """Range-compare classification (no table gather — per-element gathers
-    over a 256-entry table vectorize poorly on TPU). Matches the
+    """Range-compare classification (no table gather). Matches the
     to_base64* value tables (src/tables/base64_tables.h): 0..63 alphabet
     value, 64 ASCII space, 255 invalid."""
     v = jnp.full_like(c, 255)
@@ -62,33 +61,12 @@ def classify_chars(c: jnp.ndarray, url: bool, both: bool) -> jnp.ndarray:
 
 def sextets_to_bytes(vals_u8: jnp.ndarray, n: int) -> jnp.ndarray:
     """u8[n] compacted sextet values (n % 4 == 0; zeros beyond the valid
-    prefix) -> u8[3n/4] decoded bytes.
-
-    Lane-major by construction: the 4 sextets of each group are bitcast
-    into ONE int32 word and the 4->3 repack runs on (R, 512) word planes
-    (kernels/base64_kernel.pack_sextets), so no (n/4, 4)-minor array is
-    ever materialized at corpus scale. The round-3 minor-dim reshape
-    padded 4-lane minors to 128 lanes — 1.00G unpadded -> 16.50G HLO
-    temps, OOM on a 16G chip at a 64 MiB MIME input (VERDICT r03 #3,
-    perf_records/20260819T092158Z/bench.stderr). Reference counterpart:
-    the 64-char-block 4->3 bulk repack of src/generic/base64.h:43-246."""
-    from jax import lax
-
-    from ..kernels import base64_kernel as kb
-
-    m = vals_u8.shape[0] // 4
-    if m % 512 == 0:
-        from ..kernels.validate import u8_words
-
-        # (R, 512) i32 word rows without a minor-4 array (validate.py)
-        w512 = u8_words(vals_u8).reshape(-1, 512)
-        out32 = kb.pack_sextets(w512)
-        return lax.bitcast_convert_type(
-            out32.reshape(-1, 1), jnp.uint8).reshape(-1)
-    # small/odd buckets (< 2 KiB of chars): the minor-dim form is fine
-    # below corpus scale and keeps this helper shape-total
-    q = vals_u8.astype(jnp.int32).reshape(-1, 4)
-    t = (q[:, 0] << 18) | (q[:, 1] << 12) | (q[:, 2] << 6) | q[:, 3]
+    prefix) -> u8[3n/4] decoded bytes: the 4 sextets of each group are
+    one little-endian int32 word, repacked 4->3 (the 64-char-block bulk
+    repack of src/generic/base64.h:43-246)."""
+    w = u8_words(vals_u8)
+    t = (((w & 0xFF) << 18) | (((w >> 8) & 0xFF) << 12)
+         | (((w >> 16) & 0xFF) << 6) | ((w >> 24) & 0xFF))
     packed = jnp.stack([(t >> 16) & 0xFF, (t >> 8) & 0xFF, t & 0xFF], axis=1)
     return packed.reshape(-1).astype(jnp.uint8)
 
@@ -122,9 +100,7 @@ def decode_bulk(chars: jnp.ndarray, length, url: bool, both: bool):
     tail_vals = jnp.stack(
         [vals[jnp.minimum(nfull + i, n - 1)] for i in range(4)]
     )
-    # source index of the rank-nfull kept char by masked min-reduce (the
-    # round-3 form scattered a second full srcpos array just for this one
-    # scalar — a whole extra serialized scatter in the degraded state)
+    # source index of the rank-nfull kept char by masked min-reduce
     hit = valid & (rank == nfull)
     tail_start = jnp.where(
         nvalid > nfull, jnp.min(jnp.where(hit, idx, BIG)), length
@@ -132,123 +108,25 @@ def decode_bulk(chars: jnp.ndarray, length, url: bool, both: bool):
     return first_bad, nvalid, nvalid_at_bad, packed, tail_vals, tail_start
 
 
-def decode_bulk_routed(chars: jnp.ndarray, length, url: bool, both: bool):
-    """decode_bulk with the whitespace-compaction engine selected by a
-    one-time measurement (ops/engine_probe.general_engine64): the scatter
-    path, or the butterfly compaction kernel (kernels/butterfly64),
-    bit-identical by construction. Invalid chars need NO fallback — the
-    kernel computes exact (first_bad, nvalid_at_bad) events in-kernel
-    (kernels/butterfly.py's discipline). The only lax.cond left guards
-    pathologically dense whitespace (composition's segment bound,
-    cand_ok); its untaken scatter branch costs nothing (measured
-    const-false cond == fast path, 2026-08-20)."""
-    from jax import lax
-
-    from .engine_probe import general_engine64
-    from ..kernels import butterfly64 as kb64
-
-    n = chars.shape[0]
-    if (chars.dtype == jnp.uint16 or n % kb64.TILE or n < kb64.TILE
-            or general_engine64() != "butterfly"):
-        return decode_bulk(chars, length, url, both)
-
-    words, nvalid, first_bad, nvalid_at_ev, cand_ok, off = (
-        kb64.compact_codes(chars, length, url, both))
-
-    def fallback():
-        return decode_bulk(chars, length, url, both)
-
-    def fast():
-        from jax import lax as _lax
-
-        from ..kernels import base64_kernel as kb
-
-        # the dense code stream never leaves word form: phase C16's
-        # (R, 128) int32 words feed the roll-only pack_words kernel and
-        # only the final byte stream is bitcast out. The prior u8 detour
-        # (bitcast -> u8_words -> (R,512) reshape -> pack_sextets) cost
-        # ~37 of the 75 ms routed total (perf_records/base64_probe.jsonl)
-        packed = _lax.bitcast_convert_type(
-            kb.pack_words(words).reshape(-1, 1), jnp.uint8).reshape(-1)
-        nfull = (nvalid // 4) * 4
-        # tail sextets nfull..nfull+3 are the 4 bytes of ONE dense word
-        # (nfull % 4 == 0; zeros beyond nvalid by phase C's clamp) — one
-        # scalar gather from a materialized pallas output instead of the
-        # round-4 form's 4 dynamic gathers through the bitcast chain
-        tw = words[(nfull // 4) // 128, (nfull // 4) % 128]
-        tail_vals = jnp.stack(
-            [((tw >> (8 * i)) & 0xFF).astype(jnp.uint8) for i in range(4)]
-        )
-        # tail_start = source index of the rank-nfull kept char: locate
-        # its tile from the per-tile offsets, then rescan that one 32 KiB
-        # window (the reference's rewind trick at tile scale,
-        # generic/utf8_validation/utf8_validator.h:43-52)
-        nt = off.shape[0] - 1
-        t_star = jnp.clip(jnp.sum(off <= nfull) - 1, 0, nt - 1)
-        win = lax.dynamic_slice(
-            chars, (t_star * kb64.TILE,), (kb64.TILE,)).astype(jnp.int32)
-        codes_w = classify_chars(win, url, both)
-        wpos = t_star * kb64.TILE + positions(kb64.TILE)
-        valid_w = (codes_w <= 63) & (wpos < length)
-        rank_w = jnp.cumsum(valid_w.astype(jnp.int32)) - valid_w
-        hit = valid_w & (rank_w == (nfull - off[t_star]))
-        tail_start = jnp.where(
-            nvalid > nfull,
-            jnp.min(jnp.where(hit, wpos, BIG)),
-            length,
-        )
-        # nvalid_at_bad must match the scatter engine BIT-exactly
-        # (rank[clamped_bad]): alphabet chars strictly before first_bad
-        # when one exists (the in-kernel event), else rank[n-1] = nvalid
-        # minus the validity of the last in-range char (ADVICE r03 #3)
-        lastv = classify_chars(
-            chars[n - 1].astype(jnp.int32).reshape(1), url, both)[0]
-        last_valid = (lastv <= 63) & ((n - 1) < length)
-        nvalid_at_bad = jnp.where(
-            first_bad < BIG, nvalid_at_ev,
-            nvalid - last_valid.astype(jnp.int32))
-        return (first_bad, nvalid, nvalid_at_bad,
-                packed, tail_vals, tail_start)
-
-    return lax.cond(cand_ok, fast, fallback)
+def _unclassify(v, url: bool):
+    """6-bit value -> char byte (inverse range mapping, no table; identical
+    to the to_base64/url alphabets of src/tables/base64_tables.h)."""
+    c = v + 65
+    c = jnp.where(v >= 26, v + 71, c)
+    c = jnp.where(v >= 52, v - 4, c)
+    c = jnp.where(v == 62, 45 if url else 43, c)
+    c = jnp.where(v == 63, 95 if url else 47, c)
+    return c
 
 
-def encode_small(data: jnp.ndarray, url: bool):
-    """Minor-dim 3->4 encode for SMALL buffers and vmapped batch rows.
-    The (N/3, 3)/(N/3, 4) arrays pad their minors to 128 lanes on TPU, so
-    this form must never see corpus-scale input — encode_bulk routes
-    1536-aligned buffers through the word-plane kernel instead."""
-    from ..kernels import base64_kernel as kb
-
+def encode_bulk(data: jnp.ndarray, url: bool):
+    """data: padded uint8[N] with N % 3 == 0. Encodes whole 3-byte groups
+    (the caller slices the valid prefix on the host and appends the
+    <=2-byte tail + padding). Returns u8[4N/3]."""
     n = data.shape[0]
     d = data.astype(jnp.int32).reshape(n // 3, 3)
     t = (d[:, 0] << 16) | (d[:, 1] << 8) | d[:, 2]
     quads = jnp.stack(
         [(t >> 18) & 63, (t >> 12) & 63, (t >> 6) & 63, t & 63], axis=1
     ).reshape(-1)
-    # range-compare value->char map (no 64-entry table gather; identical
-    # to the to_base64/url alphabets of src/tables/base64_tables.h)
-    return kb._unclassify(quads, url).astype(jnp.uint8)
-
-
-def encode_bulk(data: jnp.ndarray, url: bool):
-    """data: padded uint8[N] with N % 3 == 0. Encodes whole 3-byte groups
-    (the caller slices the valid prefix on the host and appends the
-    <=2-byte tail + padding). Returns u8[4N/3].
-
-    1536-aligned buffers (the impl tier pads to that multiple) run the
-    word-plane 3->4 repack (kernels/base64_kernel.block_encode): bytes are
-    bitcast into int32 words and repacked on (R, 384) planes, so no
-    (N/3, k)-minor array is materialized at corpus scale (same HLO-padding
-    hazard as the decode side, VERDICT r03 #3)."""
-    from jax import lax
-
-    from ..kernels import base64_kernel as kb
-
-    n = data.shape[0]
-    if n % 1536 == 0 and n > 0:
-        w = lax.bitcast_convert_type(data.reshape(-1, 4), jnp.int32)
-        chars32 = kb.block_encode(w.reshape(-1, 384), url)
-        return lax.bitcast_convert_type(
-            chars32.reshape(-1, 1), jnp.uint8).reshape(-1)
-    return encode_small(data, url)
+    return _unclassify(quads, url).astype(jnp.uint8)

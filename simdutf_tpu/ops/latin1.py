@@ -21,7 +21,7 @@ def utf8_length(b: jnp.ndarray, length):
     return jnp.sum(in_r) + jnp.sum((b >= 0x80) & in_r)
 
 
-def to_utf8(b: jnp.ndarray, length):
+def to_utf8(b: jnp.ndarray, length, routing: bool = DEVICE_ROUTING):
     """Returns (out u8[2N], out_len); census-routed: an all-ASCII buffer
     (the dominant real-world Latin1 case) is a copy, an all-high buffer is
     a fixed-rate 1:2 expand; only mixed input pays the scatter engine."""
@@ -30,7 +30,7 @@ def to_utf8(b: jnp.ndarray, length):
     idx = positions(n)
     in_r = idx < length
 
-    def scatter_general():
+    def general():
         hi = (w >= 0x80) & in_r
         width = jnp.where(in_r, 1, 0) + hi.astype(jnp.int32)
         off, off_inc = excl_scan(width, n)
@@ -43,31 +43,10 @@ def to_utf8(b: jnp.ndarray, length):
         ])
         return out, jnp.int32(total)
 
-    def general():
-        # Latin-1 is always valid, so the butterfly engine (when it wins
-        # the measured probe) needs no error fallback at all
-        from .engine_probe import engine_for
-        from ..kernels import butterflyx as kbx
-
-        if (n % kbx.TILE_E or n < kbx.TILE_E
-                or engine_for("l1_to_u8") != "butterfly"):
-            return scatter_general()
-        out, total = kbx.latin1_to_utf8_compose(b.astype(jnp.uint8), length)
-        return out, jnp.int32(total)
-
-    if not DEVICE_ROUTING:
+    if not routing:
         return general()
-    from ..kernels import census as kcen
-
-    if kcen.census_supported(n):
-        # both facts from the one-pass census kernel over the raw u8
-        # buffer (the jnp reduces below are 2 unfused u8-per-lane passes)
-        bits = kcen.census_bits(b.astype(jnp.uint8), length)
-        ascii_ = (bits & kcen.BIT_NONASCII) == 0
-        allhi = ((bits & kcen.BIT_HASLO) == 0) & (length > 0)
-    else:
-        ascii_ = jnp.all((w < 0x80) | ~in_r)
-        allhi = jnp.all((w >= 0x80) | ~in_r) & (length > 0)
+    ascii_ = jnp.all((w < 0x80) | ~in_r)
+    allhi = jnp.all((w >= 0x80) | ~in_r) & (length > 0)
 
     def br_ascii():
         return jnp.pad(w, (0, n)).astype(jnp.uint8), jnp.int32(length)

@@ -98,8 +98,7 @@ def to_well_formed(words: jnp.ndarray, length, big_endian: bool):
 
 def _native16(words: jnp.ndarray, big_endian: bool) -> jnp.ndarray:
     """uint16 native-order view WITHOUT widening or tail-zeroing — the
-    census/fast-branch form (4N-byte int32 temporaries shared across
-    lax.switch branches OOM TPU buffer assignment at 64 MiB corpora)."""
+    census/fast-branch form (no 4N-byte int32 temporary)."""
     w = words.astype(jnp.uint16)
     if big_endian:
         w = (w << 8) | (w >> 8)
@@ -117,19 +116,6 @@ def census(w: jnp.ndarray, length):
     Bytes at/after ``length`` are excluded by masks (no tail-zero pass).
     """
     n = w.shape[0]
-    from ..kernels import census as kcen
-
-    if kcen.census16_supported(n):
-        # one read at stream rate; the jnp form below is 4 unfused
-        # u16-per-lane reduction passes (see kernels/census.py)
-        bits = kcen.census16_bits(w, length)
-        pos = length > 0
-        ascii_ = (bits & kcen.BIT16_NONASCII) == 0
-        u2r = ((bits & kcen.BIT16_V2) == 0) & pos
-        u3r = ((bits & kcen.BIT16_V3) == 0) & pos
-        astral = ((bits & kcen.BIT16_VASTRAL) == 0) & (
-            length % 2 == 0) & pos
-        return ascii_, u2r, u3r, astral
     idx = positions(n)
     out_r = idx >= length
     ascii_ = jnp.all((w < 0x80) | out_r)
@@ -148,27 +134,11 @@ def _mask_tail(vals, count, n_out):
     return jnp.where(idx < count, vals, 0)
 
 
-def _words_to_u8(words32, total_bytes):
-    """int32 little-endian word planes -> flat u8 stream (no minor-dim
-    stack: a (m, k<128)-minor array pads its last dim to 128 lanes
-    whenever XLA materializes it — ~35 ms per branch at 64 MiB,
-    round-3's census-branch 'elementwise floor')."""
-    from jax import lax
-
-    return lax.bitcast_convert_type(
-        words32.reshape(-1, 1), jnp.uint8).reshape(-1)[:total_bytes]
-
-
 def _u8_fast_branches(w, length, n):
     """Fixed-rate utf16->utf8 branches on native-order uint16 w; each
     returns (out u8[3n], out_len) matching the general engine
-    bit-for-bit. Lane-major: the 1:2 and 1:4 expansions pack whole int32
-    output words from strided unit planes (2 units -> 1 word, 1 pair ->
-    1 word), so no minor-dim-k array ever materializes. The 1:3
-    expansion has no word-exact packing (LCM(3,4) = 12 forces a 3-way
-    lane interleave, which this machine can only do as a padded stack),
-    so the uniform-3 class routes to the general engine instead — the
-    butterfly measures ~1.7x faster than the padded-stack branch."""
+    bit-for-bit. The uniform-3 class has no branch: it routes to the
+    general engine."""
 
     def br_ascii():
         u = jnp.where(positions(n) < length, w, 0).astype(jnp.uint8)
@@ -176,47 +146,29 @@ def _u8_fast_branches(w, length, n):
 
     def br_u2r():
         cnt = 2 * length
-        if n % 512:
-            b0 = ((w >> 6) | 0xC0).astype(jnp.uint8)
-            b1 = ((w & 0x3F) | 0x80).astype(jnp.uint8)
-            by = jnp.stack([b0, b1], axis=1).reshape(-1)  # 2n
-            by = _mask_tail(by, cnt, 2 * n)
-            return jnp.pad(by, (0, n)), cnt
-        W = w.astype(jnp.int32).reshape(-1, 512)
-        E, O = W[:, 0::2], W[:, 1::2]  # even/odd units, (R, 256)
-        words = (((E >> 6) | 0xC0) | (((E & 0x3F) | 0x80) << 8)
-                 | (((O >> 6) | 0xC0) << 16) | (((O & 0x3F) | 0x80) << 24))
-        by = _mask_tail(_words_to_u8(words, 2 * n), cnt, 2 * n)
+        b0 = ((w >> 6) | 0xC0).astype(jnp.uint8)
+        b1 = ((w & 0x3F) | 0x80).astype(jnp.uint8)
+        by = jnp.stack([b0, b1], axis=1).reshape(-1)  # 2n
+        by = _mask_tail(by, cnt, 2 * n)
         return jnp.pad(by, (0, n)), cnt
 
     def br_astral():
         cnt = 2 * length
-        if n % 512:
-            pr = w.reshape(-1, 2)
-            hi, lo = pr[:, 0].astype(jnp.int32), pr[:, 1].astype(jnp.int32)
-            hb = hi - 0xD7C0
-            b0 = (0xF0 | (hb >> 8)).astype(jnp.uint8)
-            b1 = (0x80 | ((hb >> 2) & 0x3F)).astype(jnp.uint8)
-            b2 = (0x80 | (((hb & 0x03) << 4)
-                          | ((lo >> 6) & 0x0F))).astype(jnp.uint8)
-            b3 = (0x80 | (lo & 0x3F)).astype(jnp.uint8)
-            by = jnp.stack([b0, b1, b2, b3], axis=1).reshape(-1)
-            by = _mask_tail(by, cnt, 2 * n)
-            return jnp.pad(by, (0, n)), cnt
-        W = w.astype(jnp.int32).reshape(-1, 512)
-        hi, lo = W[:, 0::2], W[:, 1::2]  # surrogate pairs, (R, 256)
-        # cp = 0x10000 + ((hi-D800)<<10) + (lo-DC00); cp>>18 is always 4
-        # for astral, so b0 = F0 | (cp>>18) needs only hi's top bits:
-        # cp bits 18..20 = (hi-D800+0x40) >> 8
-        hb = hi - 0xD7C0  # = (cp >> 10), 11 bits
-        words = ((0xF0 | (hb >> 8))
-                 | ((0x80 | ((hb >> 2) & 0x3F)) << 8)
-                 | ((0x80 | (((hb & 0x03) << 4) | ((lo >> 6) & 0x0F))) << 16)
-                 | ((0x80 | (lo & 0x3F)) << 24))
-        by = _mask_tail(_words_to_u8(words, 2 * n), cnt, 2 * n)
+        pr = w.reshape(-1, 2)
+        hi, lo = pr[:, 0].astype(jnp.int32), pr[:, 1].astype(jnp.int32)
+        # cp = 0x10000 + ((hi-D800)<<10) + (lo-DC00), so hi - D7C0 is
+        # cp >> 10 (11 bits) and b0 = F0 | (cp>>18) needs only its top bits
+        hb = hi - 0xD7C0
+        b0 = (0xF0 | (hb >> 8)).astype(jnp.uint8)
+        b1 = (0x80 | ((hb >> 2) & 0x3F)).astype(jnp.uint8)
+        b2 = (0x80 | (((hb & 0x03) << 4)
+                      | ((lo >> 6) & 0x0F))).astype(jnp.uint8)
+        b3 = (0x80 | (lo & 0x3F)).astype(jnp.uint8)
+        by = jnp.stack([b0, b1, b2, b3], axis=1).reshape(-1)
+        by = _mask_tail(by, cnt, 2 * n)
         return jnp.pad(by, (0, n)), cnt
 
-    return br_ascii, br_u2r, None, br_astral
+    return br_ascii, br_u2r, br_astral
 
 
 def _codepoints(w: jnp.ndarray, length):
@@ -288,45 +240,18 @@ def _to_utf8_general(w, length, n):
     )
 
 
-def _general_utf8(w_native, length, n):
-    """The mixed-width general path, engine-selected at trace time by a
-    one-time measurement (ops/engine_probe.general_engine16): the scatter
-    engine, or the butterfly concentration pipeline — flat, no
-    conditionals: exact first-error events and the valid-prefix byte
-    count come from inside phase B, and phase C zeroes bytes at/after the
-    prefix end (see kernels/butterfly's degraded-runtime rationale).
-    ``w_native`` is already native-order."""
-    from .engine_probe import general_engine16
-    from ..kernels import butterfly16 as kb16
-
-    if (n % kb16.TILE_U or n < kb16.TILE_U
-            or general_engine16() != "butterfly"):
-        return _to_utf8_general(w_native, length, n)
-    out, total, err_any, err_pos, err_code, err_len = kb16.to_utf8_compose(
-        w_native, length)
-    ok = ~err_any
-    return (
-        jnp.where(ok, 0, err_code),
-        jnp.where(ok, length, err_pos),
-        out,
-        jnp.where(ok, total, err_len),
-    )
-
-
-def to_utf8(words: jnp.ndarray, length, big_endian: bool):
-    """Returns (err_code, err_pos, out u8[3N], out_len); with the scatter
-    engine, census-routed (see ops/utf8.to_utf16): whole-buffer uniform
-    UTF-8-width classes take fixed-rate elementwise branches. With the
-    butterfly engine (measured), the butterfly serves the general branch
-    of the same census switch (round 4: the round-3 switch-cost lore was
-    the bench's dynamic-index artifact, not the switch — PERF.md). Bytes
-    at/after out_len are zero."""
+def to_utf8(words: jnp.ndarray, length, big_endian: bool,
+            routing: bool = DEVICE_ROUTING):
+    """Returns (err_code, err_pos, out u8[3N], out_len); census-routed
+    (see ops/utf8.to_utf16): whole-buffer uniform UTF-8-width classes
+    take fixed-rate elementwise branches. Bytes at/after out_len are
+    zero."""
     n = words.shape[0]
-    if not DEVICE_ROUTING:
-        return _general_utf8(native(words, length, big_endian), length, n)
+    if not routing:
+        return _to_utf8_general(native(words, length, big_endian), length, n)
     w16 = _native16(words, big_endian)
     ascii_, u2r, u3r, astral = census(w16, length)
-    br_ascii, br_u2r, _, br_astral = _u8_fast_branches(w16, length, n)
+    br_ascii, br_u2r, br_astral = _u8_fast_branches(w16, length, n)
 
     def wrap(br):
         def f():
@@ -338,7 +263,7 @@ def to_utf8(words: jnp.ndarray, length, big_endian: bool):
     return route(
         [(ascii_, wrap(br_ascii)), (u2r, wrap(br_u2r)),
          (astral, wrap(br_astral))],
-        lambda: _general_utf8(
+        lambda: _to_utf8_general(
             native(words, length, big_endian), length, n),
     )
 
@@ -373,13 +298,13 @@ def _u32_fast_branches(w, length, n):
     return br_bmp, br_astral
 
 
-def to_utf32(words: jnp.ndarray, length, big_endian: bool):
+def to_utf32(words: jnp.ndarray, length, big_endian: bool,
+             routing: bool = DEVICE_ROUTING):
     """Returns (err_code, err_pos, out u32[N], out_len); census-routed;
-    mixed input pays the general engine (scatter or butterfly, measured —
-    ops/engine_probe.engine_for)."""
+    mixed input pays the general engine."""
     n = words.shape[0]
 
-    def scatter_general():
+    def general():
         w = native(words, length, big_endian)
         err_pos, err_code = first_error(w, length)
         ok = err_pos == BIG
@@ -395,29 +320,7 @@ def to_utf32(words: jnp.ndarray, length, big_endian: bool):
             out_len,
         )
 
-    def general():
-        from jax import lax
-
-        from .engine_probe import engine_for
-        from ..kernels import butterflyx as kbx
-
-        if (n % kbx.TILE_E or n < kbx.TILE_E
-                or engine_for("u16_to_u32") != "butterfly"):
-            return scatter_general()
-        out, total, err_any = kbx.u16_to_utf32_compose(
-            native(words, length, big_endian), length)
-        return lax.cond(
-            err_any,
-            scatter_general,
-            lambda: (
-                vlike(jnp.int32(0), out),
-                vlike(jnp.int32(0), out) + length,
-                out,
-                jnp.int32(total),
-            ),
-        )
-
-    if not DEVICE_ROUTING:
+    if not routing:
         return general()
     w16 = _native16(words, big_endian)
     idx = positions(n)
@@ -461,7 +364,8 @@ def to_latin1_valid(words: jnp.ndarray, length, big_endian: bool):
     return (w & 0xFF).astype(jnp.uint8), length
 
 
-def to_utf8_valid(words: jnp.ndarray, length, big_endian: bool):
+def to_utf8_valid(words: jnp.ndarray, length, big_endian: bool,
+                  routing: bool = DEVICE_ROUTING):
     """convert_valid_utf16_to_utf8: skips surrogate validation entirely
     (reference: per-arch convert_valid kernels). Returns (out u8[3N],
     total); census-routed like :func:`to_utf8`."""
@@ -474,11 +378,11 @@ def to_utf8_valid(words: jnp.ndarray, length, big_endian: bool):
         out, _, total = _emit_utf8(cp, start, width, n)
         return out, jnp.int32(total)
 
-    if not DEVICE_ROUTING:
+    if not routing:
         return general()
     w16 = _native16(words, big_endian)
     ascii_, u2r, u3r, astral = census(w16, length)
-    br_ascii, br_u2r, _, br_astral = _u8_fast_branches(w16, length, n)
+    br_ascii, br_u2r, br_astral = _u8_fast_branches(w16, length, n)
 
     def wrap(br):
         def f():
@@ -493,7 +397,8 @@ def to_utf8_valid(words: jnp.ndarray, length, big_endian: bool):
     )
 
 
-def to_utf32_valid(words: jnp.ndarray, length, big_endian: bool):
+def to_utf32_valid(words: jnp.ndarray, length, big_endian: bool,
+                   routing: bool = DEVICE_ROUTING):
     n = words.shape[0]
 
     def general():
@@ -502,7 +407,7 @@ def to_utf32_valid(words: jnp.ndarray, length, big_endian: bool):
         out, _, total = _emit_utf32(cp, start, n)
         return out, jnp.int32(total)
 
-    if not DEVICE_ROUTING:
+    if not routing:
         return general()
     w16 = _native16(words, big_endian)
     idx = positions(n)

@@ -135,9 +135,8 @@ def census(w64, length):
     out_r = idx >= length
     nz = length > 0
     sur = (w64 >= 0xD800) & (w64 <= 0xDFFF)
-    # separate jnp.all reductions do NOT fuse into one pass (the
-    # 2026-08-20 census finding); pack the five facts as bits of one
-    # int32 and AND-reduce once — a single read of the buffer
+    # pack the five facts as bits of one int32 and AND-reduce once: a
+    # single reduction over one read of the buffer
     word = (
         ((w64 < 0x80) | out_r).astype(jnp.int32)
         | ((((w64 >= 0x80) & (w64 <= 0x7FF)) | out_r).astype(jnp.int32)
@@ -162,14 +161,13 @@ def _mask_tail(vals, count):
     return jnp.where(idx < count, vals, 0)
 
 
-def to_utf8(words: jnp.ndarray, length):
+def to_utf8(words: jnp.ndarray, length, routing: bool = DEVICE_ROUTING):
     """Returns (err_code, err_pos, out u8[4N], out_len); census-routed;
-    mixed input pays the general engine (scatter or butterfly, measured —
-    ops/engine_probe.engine_for)."""
+    mixed input pays the general engine."""
     n = words.shape[0]
     w64 = _native(words, length)
 
-    def scatter_general():
+    def general():
         err_pos, err_code = first_error(w64, length)
         ok = err_pos == BIG
         out, off, total = _emit_utf8(w64, length, n)
@@ -183,28 +181,7 @@ def to_utf8(words: jnp.ndarray, length):
             out_len,
         )
 
-    def general():
-        from jax import lax
-
-        from .engine_probe import engine_for
-        from ..kernels import butterflyx as kbx
-
-        if (n % kbx.TILE_E or n < kbx.TILE_E
-                or engine_for("u32_to_u8") != "butterfly"):
-            return scatter_general()
-        out, total, err_any = kbx.u32_to_utf8_compose(w64, length)
-        return lax.cond(
-            err_any,
-            scatter_general,
-            lambda: (
-                vlike(jnp.int32(0), out),
-                vlike(jnp.int32(0), out) + length,
-                out,
-                jnp.int32(total),
-            ),
-        )
-
-    if not DEVICE_ROUTING:
+    if not routing:
         return general()
     ascii_, u2, u3, astral, _ = census(w64, length)
     branches = _u8_fast_branches(w64, length, n)
@@ -250,7 +227,8 @@ def _u8_fast_branches(w64, length, n):
     return br_ascii, br_u2, br_u3, br_astral
 
 
-def to_utf8_valid(words: jnp.ndarray, length):
+def to_utf8_valid(words: jnp.ndarray, length,
+                  routing: bool = DEVICE_ROUTING):
     """convert_valid_utf32_to_utf8: skips the range/surrogate checks
     (reference: per-arch convert_valid kernels). Returns (out, total);
     census-routed."""
@@ -261,7 +239,7 @@ def to_utf8_valid(words: jnp.ndarray, length):
         out, _, total = _emit_utf8(w64, length, n)
         return out, jnp.int32(total)
 
-    if not DEVICE_ROUTING:
+    if not routing:
         return general()
     ascii_, u2, u3, astral, _ = census(w64, length)
     branches = _u8_fast_branches(w64, length, n)
@@ -296,14 +274,14 @@ def _u16_fast_branches(w64, length, n, big_endian):
     return br_bmp, br_astral
 
 
-def to_utf16(words: jnp.ndarray, length, big_endian: bool):
+def to_utf16(words: jnp.ndarray, length, big_endian: bool,
+             routing: bool = DEVICE_ROUTING):
     """Returns (err_code, err_pos, out u16[2N], out_len); census-routed;
-    mixed input pays the general engine (scatter or butterfly, measured —
-    ops/engine_probe.engine_for)."""
+    mixed input pays the general engine."""
     n = words.shape[0]
     w64 = _native(words, length)
 
-    def scatter_general():
+    def general():
         err_pos, err_code = first_error(w64, length)
         ok = err_pos == BIG
         out, off, total = _emit_utf16(w64, length, n, big_endian)
@@ -317,29 +295,7 @@ def to_utf16(words: jnp.ndarray, length, big_endian: bool):
             out_len,
         )
 
-    def general():
-        from jax import lax
-
-        from .engine_probe import engine_for
-        from ..kernels import butterflyx as kbx
-
-        if (n % kbx.TILE_E or n < kbx.TILE_E
-                or engine_for("u32_to_u16") != "butterfly"):
-            return scatter_general()
-        out, total, err_any = kbx.u32_to_utf16_compose(
-            w64, length, big_endian)
-        return lax.cond(
-            err_any,
-            scatter_general,
-            lambda: (
-                vlike(jnp.int32(0), out),
-                vlike(jnp.int32(0), out) + length,
-                out,
-                jnp.int32(total),
-            ),
-        )
-
-    if not DEVICE_ROUTING:
+    if not routing:
         return general()
     _, _, _, astral, bmp = census(w64, length)
     br_bmp, br_astral = _u16_fast_branches(w64, length, n, big_endian)
@@ -354,7 +310,8 @@ def to_utf16(words: jnp.ndarray, length, big_endian: bool):
     return route([(bmp, wrap(br_bmp)), (astral, wrap(br_astral))], general)
 
 
-def to_utf16_valid(words: jnp.ndarray, length, big_endian: bool):
+def to_utf16_valid(words: jnp.ndarray, length, big_endian: bool,
+                   routing: bool = DEVICE_ROUTING):
     """convert_valid_utf32_to_utf16: no validation pass. (out, total);
     census-routed."""
     n = words.shape[0]
@@ -364,7 +321,7 @@ def to_utf16_valid(words: jnp.ndarray, length, big_endian: bool):
         out, _, total = _emit_utf16(w64, length, n, big_endian)
         return out, jnp.int32(total)
 
-    if not DEVICE_ROUTING:
+    if not routing:
         return general()
     _, _, _, astral, bmp = census(w64, length)
     br_bmp, br_astral = _u16_fast_branches(w64, length, n, big_endian)

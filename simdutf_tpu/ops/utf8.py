@@ -27,6 +27,7 @@ from .common import (
     scatter_writes,
     shift_left,
     shift_right,
+    u8_words,
     zero_tail,
 )
 
@@ -146,34 +147,7 @@ def _first_error_from(cls, length):
 
 
 def validate_with_errors(b: jnp.ndarray, length):
-    """-> (err_code i32, err_pos i32); (0, length) on success.
-
-    Big tile-aligned buffers route to the pallas event kernel
-    (kernels/validate.utf8_first_event_len) when it is the measured
-    winner (ops/engine_probe.validate_engine): the dispatched surface
-    must serve the best backend, the reference's implementation.cpp:
-    1274-1309 discipline (VERDICT r04 #4 — the official validate row
-    shipped the XLA classify tier at 14% of ceiling while the event
-    kernel ran at ~79% in the same battery)."""
-    from ..kernels import validate as kv
-
-    n = b.shape[0]
-    if (b.dtype == jnp.uint8 and n % (kv.BR * kv.W) == 0
-            and n >= (1 << 20)):
-        from .engine_probe import validate_engine
-
-        if validate_engine() == "event":
-            x2d = jnp.concatenate(
-                [b.reshape(-1, kv.W), jnp.zeros((kv.BR, kv.W), b.dtype)])
-            pos, code = kv.utf8_first_event_len(x2d, length)
-            ok = pos == kv.BIG
-            return (jnp.where(ok, 0, code).astype(jnp.int32),
-                    jnp.where(ok, length, pos).astype(jnp.int32))
-    return _validate_with_errors_xla(b, length)
-
-
-def _validate_with_errors_xla(b: jnp.ndarray, length):
-    """The XLA classify tier (engine-probe A/B reference)."""
+    """-> (err_code i32, err_pos i32); (0, length) on success."""
     cls = classify(b, length)
     pos, code = _first_error_from(cls, length)
     ok = pos == BIG
@@ -209,31 +183,6 @@ def utf16_length(b: jnp.ndarray, length):
 
 
 
-def _census_kernel_facts(b: jnp.ndarray, length):
-    """(ascii, u2, u3, u4, has2, has4) via the pallas census kernel
-    (kernels/census.py): one read at stream rate vs the jnp form's
-    multiple u8-lane passes (3.2 ms vs ~one-pass at 64 MiB, measured
-    2026-08-20). census() and presence() both derive from the same
-    ``census_bits`` call, so jit CSE shares the single device pass."""
-    from ..kernels import census as kcen
-
-    bits = kcen.census_bits(b, length)
-    pos = length > 0
-    ascii_ = (bits & kcen.BIT_NONASCII) == 0
-    u2 = ((bits & kcen.BIT_V2) == 0) & (length % 2 == 0) & pos
-    u3 = ((bits & kcen.BIT_V3) == 0) & (length % 3 == 0) & pos
-    u4 = ((bits & kcen.BIT_V4) == 0) & (length % 4 == 0) & pos
-    has2 = (bits & kcen.BIT_HAS2) != 0
-    has4 = (bits & kcen.BIT_HAS4) != 0
-    return ascii_, u2, u3, u4, has2, has4
-
-
-def _census_kernel_ok(n: int) -> bool:
-    from ..kernels import census as kcen
-
-    return kcen.census_supported(n)
-
-
 def census(b: jnp.ndarray, length):
     """One-pass structural census for device-tier routing (the reference's
     per-block is_ascii short-circuit, utf8_to_utf16.h:237-240, lifted to
@@ -241,10 +190,6 @@ def census(b: jnp.ndarray, length):
     EXACT validity proof for its class — a True means the whole in-range
     buffer is valid UTF-8 consisting solely of that sequence width — so a
     fast branch taken on it may skip the error lattice entirely.
-
-    On TPU with tile-aligned buffers the facts come from the pallas
-    census kernel (kernels/census.py, one read at stream rate); the jnp
-    form below is the portable fallback. Both are exact.
 
     All predicates are elementwise masks + reductions over one read of the
     buffer, in uint8 arithmetic throughout — no widened (4N-byte)
@@ -254,8 +199,6 @@ def census(b: jnp.ndarray, length):
     everything into a single pass.
     """
     n = b.shape[0]
-    if _census_kernel_ok(n):
-        return _census_kernel_facts(b, length)[:4]
     b = b.astype(jnp.uint8)
     idx = positions(n)
     in_r = idx < length
@@ -295,33 +238,6 @@ def census(b: jnp.ndarray, length):
     return ascii_, u2, u3, u4
 
 
-def presence(b: jnp.ndarray, length):
-    """(has2, has4): whether any in-range byte is a 2-byte lead /
-    a byte >= 0xF0 (4-byte lead or bad lead). Their NEGATIONS license
-    the census-pruned butterfly kernel variants (kernels/butterfly
-    no_l2/no_l4): a class the census proves absent can be compiled out
-    of the lattice exactly. Fused into the same single read as census()
-    under jit (both are reductions over the same elementwise masks)."""
-    n = b.shape[0]
-    if _census_kernel_ok(n):
-        return _census_kernel_facts(b, length)[4:]
-    b = b.astype(jnp.uint8)
-    in_r = positions(n) < length
-    has2 = jnp.any(((b & 0xE0) == 0xC0) & in_r)
-    has4 = jnp.any((b >= 0xF0) & in_r)
-    return has2, has4
-
-
-def census_full(b: jnp.ndarray, length):
-    """census() + presence() from ONE device pass: the kernel facts are a
-    single pallas call (two separate census()/presence() calls do not CSE
-    across pallas_call boundaries — measured 4.4 ms vs 2.7 for one pass
-    at 64 MiB, 2026-08-20)."""
-    if _census_kernel_ok(b.shape[0]):
-        return _census_kernel_facts(b, length)
-    return (*census(b, length), *presence(b, length))
-
-
 def _mask_units(units, count):
     """Zero units at/after ``count`` so fast-branch buffers match the
     general engine's zeros-past-out_len exactly."""
@@ -338,25 +254,24 @@ def _swp16(u, big_endian: bool):
 
 def _pair_u16_stream(lo, hi):
     """Interleave two u16-value int32 planes into a flat u16 stream
-    (lo unit first) through ONE int32 word plane — never a minor-2
-    stack, whose last dim TPU pads to 128 lanes when it materializes
-    (the round-3 'elementwise floor' of these branches was exactly that
-    padding, ~35 ms/branch at 64 MiB)."""
+    (lo unit first) by packing each pair into one int32 word."""
     from jax import lax
 
     w = (lo & 0xFFFF) | (hi << 16)
-    return lax.bitcast_convert_type(
-        w.reshape(-1, 1), jnp.uint16).reshape(-1)
+    return lax.bitcast_convert_type(w, jnp.uint16).reshape(-1)
 
 
 def _u16_fast_branches(b, length, n, big_endian: bool):
     """The four fixed-rate utf8->utf16 branches; each returns
     (out u16[n], out_len) bit-identical to the general engine on its
-    class. Lane-major throughout (kernels/validate.u8_words + strided
-    lane slices): no scan, no scatter, and no minor-dim-2/3/4 arrays —
-    those pad to 128 lanes whenever XLA materializes them (measured as
-    the branches' ~35 ms floor in round 3)."""
-    from ..kernels.validate import u8_words
+    class: no scan, no scatter. The 2- and 4-byte classes read whole
+    int32 words."""
+
+    def words():
+        return u8_words(jnp.pad(b, (0, -n % 4)))
+
+    def fit(u):
+        return jnp.pad(u, (0, max(n - u.shape[0], 0)))[:n]
 
     def br_ascii():
         u = jnp.where(positions(n) < length, b, 0).astype(jnp.uint16)
@@ -364,61 +279,26 @@ def _u16_fast_branches(b, length, n, big_endian: bool):
 
     def br_u2():
         cnt = length // 2
-        if n % 512:
-            pr = b.astype(jnp.uint16).reshape(-1, 2)
-            u = ((pr[:, 0] & 0x1F) << 6) | (pr[:, 1] & 0x3F)
-            u = _mask_units(_swp16(u, big_endian), cnt)
-            return jnp.pad(u, (0, n - u.shape[0])), cnt
-        w = u8_words(b)  # (n/512, 128) i32: 2 units per word
+        w = words()  # 2 units per word
         u_lo = ((w & 0x1F) << 6) | ((w >> 8) & 0x3F)
         u_hi = (((w >> 16) & 0x1F) << 6) | ((w >> 24) & 0x3F)
         u = _pair_u16_stream(
             _swp16(u_lo, big_endian).astype(jnp.int32),
             _swp16(u_hi, big_endian).astype(jnp.int32))
-        u = _mask_units(u, cnt)
-        return jnp.pad(u, (0, n - u.shape[0])), cnt
+        return fit(_mask_units(u, cnt)), cnt
 
     def br_u3():
         cnt = length // 3
-
-        def triples(tb):
-            # (R, 384) u8 rows; strided lane slices keep minors at 128
-            x2 = tb.reshape(-1, 384)
-            t0 = x2[:, 0::3].astype(jnp.int32)
-            t1 = x2[:, 1::3].astype(jnp.int32)
-            t2 = x2[:, 2::3].astype(jnp.int32)
-            return (((t0 & 0x0F) << 12) | ((t1 & 0x3F) << 6)
-                    | (t2 & 0x3F)).reshape(-1)
-
-        n384 = n // 1536 * 1536
         n3 = n // 3 * 3
-        if n384 == 0:
-            tr = b[:n3].astype(jnp.uint16).reshape(-1, 3)
-            u = (((tr[:, 0] & 0x0F) << 12) | ((tr[:, 1] & 0x3F) << 6)
-                 | (tr[:, 2] & 0x3F))
-        else:
-            head = triples(b[:n384]).astype(jnp.uint16)
-            tail = b[n384:n3].astype(jnp.uint16).reshape(-1, 3)
-            ut = (((tail[:, 0] & 0x0F) << 12)
-                  | ((tail[:, 1] & 0x3F) << 6) | (tail[:, 2] & 0x3F))
-            u = jnp.concatenate([head, ut])
+        tr = b[:n3].astype(jnp.uint16).reshape(-1, 3)
+        u = (((tr[:, 0] & 0x0F) << 12) | ((tr[:, 1] & 0x3F) << 6)
+             | (tr[:, 2] & 0x3F))
         u = _mask_units(_swp16(u, big_endian), cnt)
         return jnp.pad(u, (0, n - u.shape[0])), cnt
 
     def br_u4():
         cnt = length // 2
-        if n % 512:
-            q = b.astype(jnp.uint16).reshape(-1, 4)
-            hi = (0xD7C0 + (((q[:, 0] & 0x07) << 8)
-                            | ((q[:, 1] & 0x3F) << 2)
-                            | ((q[:, 2] >> 4) & 0x03)))
-            lo = 0xDC00 + (((q[:, 2] & 0x0F) << 6) | (q[:, 3] & 0x3F))
-            u = jnp.stack(
-                [_swp16(hi, big_endian), _swp16(lo, big_endian)], axis=1
-            ).reshape(-1)
-            u = _mask_units(u, cnt)
-            return jnp.pad(u, (0, n - u.shape[0])), cnt
-        w = u8_words(b)  # one astral codepoint per word
+        w = words()  # one astral codepoint per word
         b0, b1 = w & 0xFF, (w >> 8) & 0xFF
         b2, b3 = (w >> 16) & 0xFF, (w >> 24) & 0xFF
         # surrogates from bytes without materializing the 21-bit cp:
@@ -430,8 +310,7 @@ def _u16_fast_branches(b, length, n, big_endian: bool):
         u = _pair_u16_stream(
             _swp16(hi, big_endian).astype(jnp.int32),
             _swp16(lo, big_endian).astype(jnp.int32))
-        u = _mask_units(u, cnt)
-        return jnp.pad(u, (0, n - u.shape[0])), cnt
+        return fit(_mask_units(u, cnt)), cnt
 
     return br_ascii, br_u2, br_u3, br_u4
 
@@ -441,10 +320,9 @@ def _emit_utf16_units(cp, lead, lead4, n, big_endian: bool):
     carried by the lead byte, unit1 (astral chars only) by the byte right
     after the lead, so per-byte widths are 0/1 and ONE scatter suffices
     (vs the reference's shuffle-table packing,
-    src/haswell/avx2_convert_utf8_to_utf16.cpp:7-130; halves scatter cost
-    vs the round-1 two-scatter form). Returns (out u16[n], off, total)
-    where off[i] = units written before byte i (the partial-output count
-    at an error position)."""
+    src/haswell/avx2_convert_utf8_to_utf16.cpp:7-130). Returns
+    (out u16[n], off, total) where off[i] = units written before byte i
+    (the partial-output count at an error position)."""
     cpx = cp - 0x10000
     unit0 = jnp.where(cp > 0xFFFF, 0xD800 + (cpx >> 10), cp)
     unit1 = 0xDC00 + (cpx & 0x3FF)
@@ -460,12 +338,12 @@ def _emit_utf16_units(cp, lead, lead4, n, big_endian: bool):
     out = scatter_writes(n, jnp.uint16, [(keep, off, val)])
     return out, off, total
 
+
 def _to_utf16_general(b: jnp.ndarray, length, big_endian: bool):
     """The general mixed-script engine: classify -> scan -> scatter.
     Units at/after out_len are zeroed (on error the raw scatter leaves
     mechanically-decoded units past the valid prefix; the zero convention
-    makes every engine's full buffer bit-identical, not just the
-    prefix)."""
+    makes every path's full buffer bit-identical, not just the prefix)."""
     n = b.shape[0]
     idx = positions(n)
     cls = classify(b, length)
@@ -484,55 +362,13 @@ def _to_utf16_general(b: jnp.ndarray, length, big_endian: bool):
     return jnp.where(ok, 0, err_code), jnp.where(ok, length, err_pos), out, out_len
 
 
-def _general_utf16(b: jnp.ndarray, length, big_endian: bool,
-                   no_l2: bool = False, no_l4: bool = False):
-    """The mixed-script general path, engine-selected at trace time by a
-    one-time measurement (ops/engine_probe): the scatter engine, or the
-    butterfly concentration pipeline. ``no_l2``/``no_l4`` select the
-    census-pruned butterfly variants (kernels/butterfly._tile_core_full);
-    they are only passed when the caller's census proved the class
-    absent, and the scatter engine ignores them (its lattice is one
-    fused pass — pruning buys nothing there).
-
-    Butterfly structure (tuned on the degraded-runtime findings,
-    PERF.md round 3): the compose pipeline runs UNCONDITIONALLY and
-    contains no lax.cond at all — exact first-error events (codes and
-    positions value-for-value with the scatter engine's lattice) and the
-    valid-prefix unit count are computed inside phase B, and phase C
-    clamps the output by the prefix end, so even invalid input needs no
-    second engine and costs the same as valid input. Both engines zero
-    units at/after out_len."""
-    from jax import lax
-
-    n = b.shape[0]
-    from .engine_probe import general_engine
-    from ..kernels import butterfly as kb
-
-    if n % kb.TILE or n < kb.TILE or general_engine() != "butterfly":
-        return _to_utf16_general(b, length, big_endian)
-    out, total, err_any, err_pos, err_code, err_len = kb.to_utf16_compose(
-        b, length, big_endian, no_l2, no_l4)
-    ok = ~err_any
-    # out is already zeroed at/after the valid-prefix end (phase C clamps
-    # every segment by it), so no tail-mask pass is needed here
-    return (
-        jnp.where(ok, 0, err_code),
-        jnp.where(ok, length, err_pos),
-        out,
-        jnp.where(ok, total, err_len),
-    )
-
-
-def to_utf16(b: jnp.ndarray, length, big_endian: bool):
-    """Validating transcode. Routes on a one-pass device census:
-    whole-buffer structured classes (ASCII / uniform 2/3/4-byte) take
+def to_utf16(b: jnp.ndarray, length, big_endian: bool,
+             routing: bool = DEVICE_ROUTING):
+    """Validating transcode. With ``routing``, a one-pass device census
+    sends whole-buffer structured classes (ASCII / uniform 2/3/4-byte) to
     fixed-rate elementwise branches (their census predicate IS the
-    validity proof); mixed input pays the general engine — scatter or
-    butterfly, measured (ops/engine_probe) — as the switch's default
-    branch. (Round 4: the round-3 "switch costs a 25 ms conditional
-    copy" lore was the bench's dynamic-index artifact, not the switch;
-    census-routed ascii measured 24.9 GB/s vs 4.9 through the butterfly,
-    PERF.md.)
+    validity proof); mixed input pays the general engine as the switch's
+    default branch.
 
     Returns (err_code, err_pos, out u16[N], out_len). On error out_len is
     the number of units for the valid prefix (scalar-machine partial
@@ -540,9 +376,9 @@ def to_utf16(b: jnp.ndarray, length, big_endian: bool):
     worst case (1 unit/byte).
     """
     n = b.shape[0]
-    if not DEVICE_ROUTING:
-        return _general_utf16(b, length, big_endian)
-    ascii_, u2, u3, u4, has2, has4 = census_full(b, length)
+    if not routing:
+        return _to_utf16_general(b, length, big_endian)
+    ascii_, u2, u3, u4 = census(b, length)
     br_ascii, br_u2, br_u3, br_u4 = _u16_fast_branches(b, length, n, big_endian)
 
     def wrap(br):
@@ -552,26 +388,10 @@ def to_utf16(b: jnp.ndarray, length, big_endian: bool):
             return z, z + length, out, z + cnt
         return f
 
-    branches = [(ascii_, wrap(br_ascii)), (u2, wrap(br_u2)),
-                (u3, wrap(br_u3)), (u4, wrap(br_u4))]
-    from .engine_probe import general_engine
-    from ..kernels import butterfly as _kb
-
-    if (general_engine() == "butterfly" and n % _kb.TILE == 0
-            and n >= _kb.TILE):
-        # census-pruned butterfly variants for mixed input missing whole
-        # width classes (zh-class corpora: ASCII + 3-byte only). Ordered
-        # most- to least-pruned; route() takes the first true predicate,
-        # and the structured classes above win over these.
-        branches += [
-            (~has2 & ~has4,
-             lambda: _general_utf16(b, length, big_endian, True, True)),
-            (~has4,
-             lambda: _general_utf16(b, length, big_endian, False, True)),
-        ]
     return route(
-        branches,
-        lambda: _general_utf16(b, length, big_endian),
+        [(ascii_, wrap(br_ascii)), (u2, wrap(br_u2)),
+         (u3, wrap(br_u3)), (u4, wrap(br_u4))],
+        lambda: _to_utf16_general(b, length, big_endian),
     )
 
 
@@ -638,40 +458,11 @@ def _to_utf32_general(b: jnp.ndarray, length):
     )
 
 
-def _general_utf32(b: jnp.ndarray, length):
-    """Mixed-script utf8->utf32, engine-selected at trace time by a
-    one-time measurement (ops/engine_probe.general_engine32): scatter or
-    the butterfly concentration pipeline with an any-error fallback to the
-    scatter engine (exact first-error/partial-output contracts preserved:
-    the butterfly only returns its own output for fully-valid input)."""
-    from jax import lax
-
-    from .engine_probe import general_engine32
-    from ..kernels import butterfly32 as kb32
-
-    n = b.shape[0]
-    if (n % kb32.TILE_B or n < kb32.TILE_B
-            or general_engine32() != "butterfly"):
-        return _to_utf32_general(b, length)
-    out, total, err_any = kb32.to_utf32_compose(b, length)
-    return lax.cond(
-        err_any,
-        lambda: _to_utf32_general(b, length),
-        lambda: (
-            vlike(jnp.int32(0), out),
-            vlike(jnp.int32(0), out) + length,
-            out,
-            jnp.int32(total),
-        ),
-    )
-
-
-def to_utf32(b: jnp.ndarray, length):
+def to_utf32(b: jnp.ndarray, length, routing: bool = DEVICE_ROUTING):
     """Returns (err_code, err_pos, out u32[N], out_len); census-routed
-    like :func:`to_utf16`; mixed input pays the general engine (scatter
-    or butterfly, measured — ops/engine_probe)."""
-    if not DEVICE_ROUTING:
-        return _general_utf32(b, length)
+    like :func:`to_utf16`; mixed input pays the general engine."""
+    if not routing:
+        return _to_utf32_general(b, length)
     n = b.shape[0]
     ascii_, u2, u3, u4 = census(b, length)
     br_ascii, br_u2, br_u3, br_u4 = _u32_fast_branches(b, length, n)
@@ -686,7 +477,7 @@ def to_utf32(b: jnp.ndarray, length):
     return route(
         [(ascii_, wrap(br_ascii)), (u2, wrap(br_u2)),
          (u3, wrap(br_u3)), (u4, wrap(br_u4))],
-        lambda: _general_utf32(b, length),
+        lambda: _to_utf32_general(b, length),
     )
 
 
@@ -760,7 +551,8 @@ def to_latin1_valid(b: jnp.ndarray, length):
     return out, total
 
 
-def to_utf16_valid(b: jnp.ndarray, length, big_endian: bool):
+def to_utf16_valid(b: jnp.ndarray, length, big_endian: bool,
+                   routing: bool = DEVICE_ROUTING):
     """convert_valid_utf8_to_utf16*: assumes valid input, skips the error
     events entirely (reference: generic/utf8_to_utf16/valid_utf8_to_utf16.h).
     Returns (out u16[N], out_len); census-routed like :func:`to_utf16`."""
@@ -775,7 +567,7 @@ def to_utf16_valid(b: jnp.ndarray, length, big_endian: bool):
         )
         return out, jnp.int32(total)
 
-    if not DEVICE_ROUTING:
+    if not routing:
         return general()
     ascii_, u2, u3, u4 = census(b, length)
     br_ascii, br_u2, br_u3, br_u4 = _u16_fast_branches(b, length, n, big_endian)
@@ -793,7 +585,7 @@ def to_utf16_valid(b: jnp.ndarray, length, big_endian: bool):
     )
 
 
-def to_utf32_valid(b: jnp.ndarray, length):
+def to_utf32_valid(b: jnp.ndarray, length, routing: bool = DEVICE_ROUTING):
     n = b.shape[0]
 
     def general():
@@ -806,7 +598,7 @@ def to_utf32_valid(b: jnp.ndarray, length):
         out = scatter_writes(n, jnp.uint32, [(lead, off, cls["cp"])])
         return out, jnp.int32(total)
 
-    if not DEVICE_ROUTING:
+    if not routing:
         return general()
     ascii_, u2, u3, u4 = census(b, length)
     br_ascii, br_u2, br_u3, br_u4 = _u32_fast_branches(b, length, n)

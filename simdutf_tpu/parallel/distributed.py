@@ -29,23 +29,9 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 try:  # jax >= 0.8
-    from jax import shard_map as _shard_map
+    from jax import shard_map
 except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map as _shard_map
-
-
-def shard_map(*args, **kwargs):
-    """shard_map with varying-manual-axes checking off: the butterfly
-    engines' pallas phases mix shard-varying tiles with unvarying scalar
-    prefetch operands, which jax's check_vma lint rejects inside the
-    pallas interpreter ("dynamic_slice requires varying manual axes to
-    match") even though the program is correct — jax's own error text
-    names check_vma=False as the supported workaround. Sharded-vs-single
-    bit parity is pinned by tests/test_parallel.py instead."""
-    try:
-        return _shard_map(*args, check_vma=False, **kwargs)
-    except TypeError:  # pragma: no cover - pre-check_vma jax
-        return _shard_map(*args, **kwargs)
+    from jax.experimental.shard_map import shard_map
 
 from ..ops import utf8 as o8
 from ..ops import utf16 as o16
@@ -329,24 +315,8 @@ def plan_unit_for(op: str) -> int:
     return _MATRIX_OPS[op][0]
 
 
-def _engines_pin():
-    """Trace-time general-engine pins (None = not yet resolved). The
-    cached sharded steps bake the engine choice into their jitted
-    programs, so the pins MUST be part of the cache key — without them a
-    step traced under one engine silently serves every later engine pin
-    (the per-impl test loop of tests/helpers/test.cpp:106 would be
-    vacuous at engine granularity)."""
-    from ..ops import engine_probe as ep
-
-    return (ep._CHOICE, ep._CHOICE16, ep._CHOICE32, ep._CHOICE64)
-
-
-def _matrix_step(mesh: Mesh, axis: str, op: str):
-    return _matrix_step_impl(mesh, axis, op, _engines_pin())
-
-
 @functools.lru_cache(maxsize=64)
-def _matrix_step_impl(mesh: Mesh, axis: str, op: str, engines):
+def _matrix_step(mesh: Mesh, axis: str, op: str):
     _, fn = _MATRIX_OPS[op]
 
     def local(shards, lengths):
@@ -424,15 +394,11 @@ def count_sharded(
 # --- base64 (plan with plan_shards_base64) -----------------------------------
 
 
-def _b64_step(mesh: Mesh, axis: str, url: bool, both: bool):
-    return _b64_step_impl(mesh, axis, url, both, _engines_pin())
-
-
 @functools.lru_cache(maxsize=16)
-def _b64_step_impl(mesh: Mesh, axis: str, url: bool, both: bool, engines):
+def _b64_step(mesh: Mesh, axis: str, url: bool, both: bool):
     def local(shards, lengths):
         first_bad, nvalid, nvalid_at_bad, packed, tail_vals, tail_start = (
-            base64_ops.decode_bulk_routed(shards[0], lengths[0], url, both)
+            base64_ops.decode_bulk(shards[0], lengths[0], url, both)
         )
         return (first_bad[None], nvalid[None], nvalid_at_bad[None],
                 packed[None], tail_vals[None], tail_start[None])
@@ -532,8 +498,8 @@ def binary_to_base64_sharded(
     data, plan: ShardPlan, mesh: Mesh, options: int = 0,
     axis: str = "data", staged=None,
 ):
-    """Base64-encode a sharded binary payload (VERDICT r04 #6: the
-    reference's thread-scaling story covers encode first-class,
+    """Base64-encode a sharded binary payload (the reference's
+    thread-scaling story covers encode first-class,
     benchmarks/threaded.cpp + benchmark_base64.cpp).
 
     ``plan`` must come from :func:`planner.plan_shards_binary3` on the

@@ -10,8 +10,8 @@ Parity with the reference's dispatch layer (src/implementation.cpp):
     ``get_active_implementation() = impl`` (tests/select_implementation.cpp)
 
 Where the reference probes CPUID (isadetection.h), we probe
-``jax.devices()``: a TPU platform selects the Pallas tier, any JAX backend
-selects the XLA tier, and the NumPy fallback is always available.
+``jax.devices()``: any JAX backend selects the XLA tier, and the NumPy
+fallback is always available.
 """
 
 from __future__ import annotations
@@ -25,17 +25,17 @@ from .implementation import Implementation, FallbackImplementation
 _lock = threading.Lock()
 _implementations: Dict[str, Implementation] = {}
 _active: Optional[Implementation] = None
-_priority = ["pallas", "xla", "cnative", "fallback"]  # best-first, like the reference's
+_priority = ["xla", "cnative", "fallback"]  # best-first, like the reference's
 # icelake->haswell->...->fallback listing order (implementation.cpp:758-786)
 
 ENV_FORCE = "SIMDUTF_TPU_FORCE_IMPLEMENTATION"
 ENV_SMALL = "SIMDUTF_TPU_SMALL_INPUT_BYTES"
-# Below this many input bytes, auto-selected device tiers answer from the
-# scalar tier instead: one device launch costs ~100 us on a local TPU host
-# (~ms through a tunnel), while the C tier moves ~4-5 GB/s, so the
-# crossover sits near overhead x scalar-throughput ~ 0.5 MB. 256 KiB is
-# the conservative default; measured on-host in tools/bench_all.py.
-_SMALL_DEFAULT = 256 * 1024
+# Up to this many input bytes, the auto-selected device tier answers from
+# the scalar tier instead. On an NVIDIA H200 (700 W) the C tier beat the
+# device tier's served time (host padding and transfers included) at 4 MiB
+# and lost from 8 MiB, for both validate_utf8 and convert_utf8_to_utf16le
+# (chip_smoke.py phase 7; PERF.md).
+_SMALL_DEFAULT = 4 << 20
 
 
 class SmallInputRouter:
@@ -95,7 +95,7 @@ def _with_small_routing(impl: Implementation) -> Implementation:
         threshold = int(os.environ.get(ENV_SMALL, _SMALL_DEFAULT))
     except ValueError:
         threshold = _SMALL_DEFAULT
-    if threshold <= 0 or impl.name not in ("pallas", "xla"):
+    if threshold <= 0 or impl.name != "xla":
         return impl
     scalar = _implementations.get("cnative") or _implementations["fallback"]
     return SmallInputRouter(impl, scalar, threshold)
@@ -115,13 +115,6 @@ def _ensure_builtin_registered() -> None:
 
             register(XLAImplementation())
         except Exception:  # pragma: no cover - jax not importable
-            pass
-    if "pallas" not in _implementations:
-        try:
-            from .kernels.impl import PallasImplementation
-
-            register(PallasImplementation())
-        except Exception:  # pragma: no cover
             pass
     if "cnative" not in _implementations:
         try:

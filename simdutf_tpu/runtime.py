@@ -17,6 +17,7 @@ every call re-fault its buffers. Two measures:
 from __future__ import annotations
 
 import ctypes
+import os
 import threading
 
 import numpy as np
@@ -85,3 +86,19 @@ def staging_buffer(
         buf.reshape(-1)[fill_len:watermark] = 0
     entry[1] = fill_len
     return buf
+
+
+def configure_compile_cache() -> str:
+    """Point JAX's persistent compilation cache at a fixed directory and
+    return it. Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it
+    itself and nothing is set here; otherwise the cache lives in
+    ``.jax_cache`` at the root of the checkout. Call before compiling."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    import jax
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.path.join(root, ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path

@@ -11,7 +11,7 @@ positions reported as *global* input offsets (in input code units) — the
 same carry discipline the shard planner applies across chips
 (parallel/planner.py), here applied across time.
 
-TPU-shaped by construction: every ``push`` hands the device one
+Device-shaped by construction: every ``push`` hands the device one
 boundary-aligned buffer (no per-character host loop); the only host work
 is the <=3-byte carry splice between chunks.
 """

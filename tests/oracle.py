@@ -7,7 +7,7 @@ src/scalar/utf16.h:39-67, src/scalar/utf8_to_utf16/utf8_to_utf16.h:128-255,
 src/scalar/base64.h:33-216, src/generic/base64.h:43-246).
 
 It plays the role of simdutf's ``tests/reference`` naive re-implementation:
-production tiers (golden/xla/pallas) are never checked against themselves.
+production tiers (golden/cnative/xla) are never checked against themselves.
 Only used by tests — never imported by the library.
 """
 

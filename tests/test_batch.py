@@ -174,7 +174,8 @@ def test_batch_ascii_fast_paths_match_general():
                    bytes(range(0x20, 0x7F)) * 8]
     # force both paths and compare
     buf, lens = batch._pack(ascii_items)
-    assert batch._ascii_widen_batch(buf, lens, len(ascii_items)) is not None
+    assert batch._ascii_batch(buf, lens, len(ascii_items),
+                              np.uint16) is not None
     got = batch.convert_utf8_to_utf16le_batch(ascii_items)
     for (res, out), item in zip(got, ascii_items):
         assert res.is_ok and res.count == len(item)
@@ -187,10 +188,10 @@ def test_batch_ascii_fast_paths_match_general():
         assert out == item
 
     # a single non-ASCII byte anywhere must fall back (peek may miss it;
-    # the kernel flag is the proof) and still produce exact results
+    # the device pass is the proof) and still produce exact results
     mixed = [b"hello", "héllo".encode(), b"world"]
     bufm, lensm = batch._pack(mixed)
-    assert batch._ascii_widen_batch(bufm, lensm, len(mixed)) is None
+    assert batch._ascii_batch(bufm, lensm, len(mixed), np.uint16) is None
     gotm = batch.convert_utf8_to_utf16le_batch(mixed)
     for (res, out), item in zip(gotm, mixed):
         assert res.is_ok

@@ -48,7 +48,7 @@ def test_counts_symmetry(impl_name, le):
 
 
 @pytest.mark.parametrize("le", CASES, ids=range(len(CASES)))
-def test_convert_from_utf16_symmetry(impl_name, le):
+def test_convert_from_utf16_symmetry(transcode_impl, le):
     be = swap16(le)
     for fn_le, fn_be in [
         (su.convert_utf16le_to_utf8_with_errors,
@@ -65,7 +65,7 @@ def test_convert_from_utf16_symmetry(impl_name, le):
 
 
 @pytest.mark.parametrize("seed", [11, 12])
-def test_convert_into_utf16_symmetry(impl_name, seed):
+def test_convert_into_utf16_symmetry(transcode_impl, seed):
     data = helpers.random_utf8(seed, 200, p1=0.4, p2=0.2, p3=0.2, p4=0.2)
     assert swap16(su.convert_utf8_to_utf16le(data)) == \
         su.convert_utf8_to_utf16be(data)

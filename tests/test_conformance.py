@@ -86,7 +86,7 @@ def test_utf8_counts(impl_name, data):
 
 
 @pytest.mark.parametrize("data", UTF8_CASES + UTF8_BAD_CASES, ids=_ids(UTF8_CASES + UTF8_BAD_CASES))
-def test_utf8_to_utf16(impl_name, data):
+def test_utf8_to_utf16(transcode_impl, data):
     for be in (False, True):
         expect_res, expect_out = oracle.convert_utf8_to_utf16_with_errors(data, be)
         fn = (
@@ -109,7 +109,7 @@ def test_utf8_to_utf16(impl_name, data):
 
 
 @pytest.mark.parametrize("data", UTF8_CASES + UTF8_BAD_CASES, ids=_ids(UTF8_CASES + UTF8_BAD_CASES))
-def test_utf8_to_utf32(impl_name, data):
+def test_utf8_to_utf32(transcode_impl, data):
     expect_res, expect_out = oracle.convert_utf8_to_utf32_with_errors(data)
     got_res, got_out = su.convert_utf8_to_utf32_with_errors(data)
     assert got_res == expect_res
@@ -200,7 +200,7 @@ def test_utf16_counts_lengths(impl_name, data):
 
 
 @pytest.mark.parametrize("data", ALL_UTF16, ids=_ids(ALL_UTF16))
-def test_utf16_to_utf8(impl_name, data):
+def test_utf16_to_utf8(transcode_impl, data):
     expect_res, expect_out = oracle.convert_utf16_to_utf8_with_errors(data, False)
     got_res, got_out = su.convert_utf16le_to_utf8_with_errors(data)
     assert got_res == expect_res
@@ -212,7 +212,7 @@ def test_utf16_to_utf8(impl_name, data):
 
 
 @pytest.mark.parametrize("data", ALL_UTF16, ids=_ids(ALL_UTF16))
-def test_utf16_to_utf32(impl_name, data):
+def test_utf16_to_utf32(transcode_impl, data):
     expect_res, expect_out = oracle.convert_utf16_to_utf32_with_errors(data, False)
     got_res, got_out = su.convert_utf16le_to_utf32_with_errors(data)
     assert got_res == expect_res
@@ -258,7 +258,7 @@ ALL_UTF32 = UTF32_CASES + UTF32_BAD_CASES
 
 
 @pytest.mark.parametrize("data", ALL_UTF32, ids=_ids(ALL_UTF32))
-def test_utf32(impl_name, data):
+def test_utf32(transcode_impl, data):
     expect = oracle.validate_utf32_with_errors(data)
     assert su.validate_utf32(data) == expect.is_ok
     assert su.validate_utf32_with_errors(data) == expect
@@ -280,7 +280,7 @@ def test_utf32(impl_name, data):
 @pytest.mark.parametrize(
     "data", [b"", b"ascii", bytes(range(256)), helpers.random_bytes(7, 501)]
 )
-def test_latin1(impl_name, data):
+def test_latin1(transcode_impl, data):
     assert su.convert_latin1_to_utf8(data) == oracle.convert_latin1_to_utf8(data)
     assert su.convert_latin1_to_utf16le(data) == oracle.convert_latin1_to_utf16(data, False)
     assert su.convert_latin1_to_utf16be(data) == oracle.convert_latin1_to_utf16(data, True)
@@ -346,7 +346,7 @@ def test_bom_prefixed_autodetect(impl_name):
 
 
 @pytest.mark.parametrize("data", UTF16_CASES, ids=_ids(UTF16_CASES))
-def test_utf16_valid_variants(impl_name, data):
+def test_utf16_valid_variants(transcode_impl, data):
     if not oracle.validate_utf16(data, False):
         pytest.skip("needs valid input")
     _, exp8 = oracle.convert_utf16_to_utf8_with_errors(data, False)
@@ -358,7 +358,7 @@ def test_utf16_valid_variants(impl_name, data):
     assert su.convert_valid_utf16be_to_utf32(be) == exp32
 
 
-def test_convert_valid_matches_validating_on_valid_input(impl_name):
+def test_convert_valid_matches_validating_on_valid_input(transcode_impl):
     """Every convert_valid_* must agree with its validating sibling on
     valid input (the reference's valid_ kernels are pure fast paths,
     e.g. generic/utf8_to_utf16/valid_utf8_to_utf16.h)."""

@@ -1,5 +1,5 @@
 """The ops tier composes inside user jit programs on device arrays —
-the 'TPU-native' usage mode (data never leaves the device)."""
+the device-resident usage mode (data never leaves the device)."""
 
 import jax
 import jax.numpy as jnp

@@ -45,7 +45,7 @@ _U16_CLASSES = [0x0000, 0x007F, 0x0080, 0x07FF, 0x0800, 0xD7FF,
                 0xD800, 0xDBFF, 0xDC00, 0xDFFF, 0xE000, 0xFFFF]
 
 
-def test_all_utf16_class_pairs(impl_name):
+def test_all_utf16_class_pairs(transcode_impl):
     """Every pairing of unit classes (incl. surrogate halves) in a 3-unit
     window — validation, count, and transcode parity."""
     for a in _U16_CLASSES:
@@ -87,7 +87,7 @@ PUZZLERS = [
 
 
 @pytest.mark.parametrize("i", range(len(PUZZLERS)))
-def test_puzzlers(impl_name, i):
+def test_puzzlers(transcode_impl, i):
     data = PUZZLERS[i]
     assert su.validate_utf8_with_errors(
         data
@@ -107,7 +107,7 @@ def test_null_safety(impl_name):
     assert su.to_well_formed_utf16le(b"") == b""
 
 
-def test_whole_repertoire_transcode_matrix(impl_name):
+def test_whole_repertoire_transcode_matrix(transcode_impl):
     """Every Unicode scalar value (all 1,112,064 codepoints) in one buffer:
     the full transcode matrix must agree with CPython's codecs
     byte-for-byte, and counts/lengths must be exact. The reference

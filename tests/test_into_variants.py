@@ -7,7 +7,7 @@ import pytest
 import simdutf_tpu as su
 
 
-def test_into_roundtrip(impl_name):
+def test_into_roundtrip(transcode_impl):
     data = "héllo 日本 🙂".encode()
     out = np.zeros(su.utf16_length_from_utf8(data), dtype=np.uint16)
     n = su.convert_utf8_to_utf16le_into(data, out)
@@ -19,12 +19,12 @@ def test_into_roundtrip(impl_name):
     assert out8[:n8].tobytes() == data
 
 
-def test_into_error_returns_zero(impl_name):
+def test_into_error_returns_zero(transcode_impl):
     out = np.zeros(16, dtype=np.uint16)
     assert su.convert_utf8_to_utf16le_into(b"ab\xff", out) == 0
 
 
-def test_into_too_small_raises(impl_name):
+def test_into_too_small_raises(transcode_impl):
     out = np.zeros(1, dtype=np.uint16)
     with pytest.raises(ValueError, match="too small"):
         su.convert_utf8_to_utf16le_into(b"abcdef", out)

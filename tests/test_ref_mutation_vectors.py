@@ -1,5 +1,5 @@
-"""Replay the brute-force mutation corpora on every tier AND every
-general-path engine (VERDICT r03 #7).
+"""Replay the brute-force mutation corpora on every tier and on the
+device tier's general engine.
 
 The vectors freeze the reference's corrupt/brute-force methodology
 (/root/reference/tests/validate_utf8_brute_force_tests.cpp: random valid
@@ -10,9 +10,8 @@ tools/extract_ref_vectors.py). Here they replay:
 
  - per implementation tier (impl_name fixture, the reference's
    per-implementation loop — tests/helpers/test.cpp:106), and
- - per general-path ENGINE: the butterfly concentration pipelines are
-   exercised directly at tile scale (kernels/butterfly{,16}) against the
-   same expectations, since the tier surface only reaches them on TPU.
+ - through the general classify -> scan -> scatter engine with census
+   routing off, behind a valid prefix.
 """
 
 import base64
@@ -41,7 +40,7 @@ def _chunks(vs):
 
 
 @pytest.mark.parametrize("ci", range(len(_chunks(_U8))))
-def test_utf8_mutation_per_tier(impl_name, ci):
+def test_utf8_mutation_per_tier(transcode_impl, ci):
     for v in _chunks(_U8)[ci]:
         data = v["raw"]
         assert su.validate_utf8(data) == v["valid"], v["data"]
@@ -62,7 +61,7 @@ def test_utf8_mutation_per_tier(impl_name, ci):
 
 
 @pytest.mark.parametrize("ci", range(len(_chunks(_U16))))
-def test_utf16_mutation_per_tier(impl_name, ci):
+def test_utf16_mutation_per_tier(transcode_impl, ci):
     for v in _chunks(_U16)[ci]:
         data = v["raw"]
         assert su.validate_utf16le(data) == v["valid"], v["data"]
@@ -77,104 +76,52 @@ def test_utf16_mutation_per_tier(impl_name, ci):
             assert su.convert_utf16le_to_utf8(data) == b""
 
 
-# --- per-ENGINE replay: the butterfly pipelines at tile scale -------------
+# --- the general engine alone, behind a valid mixed prefix -----------------
 
-import functools
-
-
-@functools.cache
-def _compose8_jit():
-    import jax
-
-    import simdutf_tpu.kernels.butterfly as kb
-
-    return jax.jit(lambda p, L: kb.to_utf16_compose(p, L, False))
+_GENERAL = {}
 
 
-def _butterfly8(data: bytes):
-    import jax.numpy as jnp
+def _general():
+    from simdutf_tpu.ops.impl import XLAImplementation
 
-    import simdutf_tpu.kernels.butterfly as kb
-
-    arr = np.frombuffer(data, np.uint8)
-    # every mutant pads to the same one-tile shape so the jitted compose
-    # compiles once and replays hundreds of vectors cheaply
-    n = max(kb.TILE, -(-len(arr) // kb.TILE) * kb.TILE)
-    p = np.zeros(n, np.uint8)
-    p[: len(arr)] = arr
-    out, total, err, err_pos, err_code, err_len = _compose8_jit()(
-        jnp.asarray(p), jnp.int32(len(arr))
-    )
-    return (np.asarray(out), int(total), bool(err), int(err_pos),
-            int(err_code), int(err_len))
+    if not _GENERAL:
+        _GENERAL["xla"] = XLAImplementation(routing=False)
+    return _GENERAL["xla"]
 
 
 @pytest.mark.parametrize("stride_off", range(6))
-def test_utf8_mutation_butterfly_engine(stride_off):
-    """Every 6th vector through the butterfly utf8->utf16 engine: exact
-    (code, pos, prefix-units, bytes) parity with the stored dual-oracle
-    expectation. The vector is embedded mid-tile behind a valid mixed
-    prefix so cross-boundary carries are exercised, then checked again at
-    offset 0."""
+def test_utf8_mutation_general_engine(stride_off):
+    """Every 6th vector through the classify -> scan -> scatter
+    utf8->utf16 engine: exact (code, pos, prefix-units, bytes) parity with
+    the golden machine, at offset 0 and embedded behind a valid mixed
+    prefix so carries across words are exercised."""
     from simdutf_tpu.golden import utf8 as g8
 
     prefix = ("mixed é 東 \U0001f642 ".encode() * 40)
     prefix = prefix[: su.trim_partial_utf8(prefix)]
     for v in _U8[stride_off::6]:
         for lead in (b"", prefix):
-            data = lead + v["raw"]
-            out, total, err, err_pos, err_code, err_len = _butterfly8(data)
-            res, want = g8.convert_to_utf16_with_errors(
-                np.frombuffer(data, np.uint8), False
-            )
+            arr = np.frombuffer(lead + v["raw"], np.uint8)
+            res, out = _general().convert_utf8_to_utf16le_with_errors(arr)
+            want_res, want = g8.convert_to_utf16_with_errors(arr, False)
             if v["valid"] and not lead:
-                assert not err and res.is_ok
-            assert err != res.is_ok, v["data"]
-            if err:
-                assert err_pos == res.count, (v["data"], len(lead))
-                assert err_code == int(res.error), (v["data"], len(lead))
-                assert err_len == len(want), (v["data"], len(lead))
-            else:
-                assert total == len(want)
-            assert np.array_equal(out[: len(want)], want), (
-                v["data"], len(lead))
-
-
-@functools.cache
-def _compose16_jit():
-    import jax
-
-    import simdutf_tpu.kernels.butterfly16 as kb16
-
-    return jax.jit(kb16.to_utf8_compose)
-
-
-def _butterfly16(units: np.ndarray):
-    import jax.numpy as jnp
-
-    import simdutf_tpu.kernels.butterfly16 as kb16
-
-    n = max(kb16.TILE_U, -(-len(units) // kb16.TILE_U) * kb16.TILE_U)
-    p = np.zeros(n, np.uint16)
-    p[: len(units)] = units
-    return _compose16_jit()(jnp.asarray(p), jnp.int32(len(units)))
+                assert res.is_ok
+            assert res == want_res, (v["data"], len(lead))
+            assert np.array_equal(out, want), (v["data"], len(lead))
 
 
 @pytest.mark.parametrize("stride_off", range(3))
-def test_utf16_mutation_butterfly_engine(stride_off):
-    """UTF-16 mutants through the butterfly16 utf16->utf8 engine: exact
+def test_utf16_mutation_general_engine(stride_off):
+    """UTF-16 mutants through the general utf16->utf8 engine: exact
     (code, pos) parity with the stored expectation on invalid input, and
     byte-for-byte output parity on valid mutants."""
     for v in _U16[stride_off::3]:
         units = np.frombuffer(v["raw"], np.uint16)
-        got = _butterfly16(units)
-        out, total, err = np.asarray(got[0]), int(got[1]), bool(got[2])
+        res, out = _general().convert_utf16le_to_utf8_with_errors(units)
         if not v["valid"]:
-            assert err, v["data"]
-            assert int(got[3]) == v["pos"], v["data"]
-            assert int(got[4]) == int(ec[v["code"]]), v["data"]
+            assert not res.is_ok, v["data"]
+            assert res.count == v["pos"], v["data"]
+            assert int(res.error) == int(ec[v["code"]]), v["data"]
             continue
-        assert not err, v["data"]
-        want = v["raw"].decode("utf-16-le").encode("utf-8")
-        assert total == len(want), v["data"]
-        assert bytes(out[:total].astype(np.uint8)) == want, v["data"]
+        assert res.is_ok, v["data"]
+        assert out.tobytes() == v["raw"].decode("utf-16-le").encode("utf-8")

@@ -27,7 +27,7 @@ _UTF16 = [bytes_ for bytes_ in V["utf16_valid_units"]]
 
 
 @pytest.mark.parametrize("i", range(len(_INVALID)))
-def test_ref_invalid_utf8(impl_name, i):
+def test_ref_invalid_utf8(transcode_impl, i):
     data = _INVALID[i]
     assert not su.validate_utf8(data)
     # reference asserts the non-error converters write 0 units on bad input
@@ -47,7 +47,7 @@ def test_ref_puzzler2_exact_error(impl_name):
 
 
 @pytest.mark.parametrize("i", range(len(_VALID_RT)))
-def test_ref_valid_roundtrips(impl_name, i):
+def test_ref_valid_roundtrips(transcode_impl, i):
     src = _VALID_RT[i]
     assert su.validate_utf8(src)
     # utf32 roundtrip (special_cases_utf8_utf32_roundtrip)
@@ -76,7 +76,7 @@ def test_ref_valid_roundtrips(impl_name, i):
 
 
 @pytest.mark.parametrize("i", range(len(_UTF16)))
-def test_ref_utf16_vectors(impl_name, i):
+def test_ref_utf16_vectors(transcode_impl, i):
     import struct
 
     units = _UTF16[i]

@@ -24,7 +24,7 @@ def restore_active():
 
 def test_autopick_wraps_device_tier(restore_active):
     impl = registry._detect_best()
-    if impl.name not in ("pallas", "xla"):
+    if impl.name != "xla":
         pytest.skip("no device tier on this backend")
     assert isinstance(impl, registry.SmallInputRouter)
     # registry lookups and forced selection still hand out the raw tiers
@@ -36,7 +36,7 @@ def test_autopick_wraps_device_tier(restore_active):
 
 def test_routing_by_size(restore_active, monkeypatch):
     impls = registry.get_available_implementations()
-    device = impls.get("xla") or impls.get("pallas")
+    device = impls.get("xla")
     if device is None:
         pytest.skip("no device tier")
     scalar = impls.get("cnative") or impls["fallback"]
@@ -72,7 +72,7 @@ def test_threshold_env(restore_active, monkeypatch):
     assert not isinstance(impl, registry.SmallInputRouter)
     monkeypatch.setenv(registry.ENV_SMALL, "123456")
     impl = registry._detect_best()
-    if impl.name in ("pallas", "xla"):
+    if impl.name == "xla":
         assert isinstance(impl, registry.SmallInputRouter)
         assert impl._threshold == 123456
 

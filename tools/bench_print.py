@@ -5,9 +5,8 @@ scripts/create_latex_table.py post-processors.
 
 Inputs (any mix):
   * a `bench_all.jsonl` file (one JSON record per procedure)
-  * a `BENCH_r*.json` single-line headline record
-  * a `perf_records/<stamp>/` directory (picks bench.json + bench_all.jsonl)
-  * with no args: the newest perf_records/ entry, else BENCH_r*.json in cwd
+  * a `bench.py` single-line headline record
+  * a directory holding bench.json and/or bench_all.jsonl
 
 Output: a GitHub-markdown table sorted by GB/s (device procedures), then
 end-to-end rows, then competitors; `--latex` emits a LaTeX tabular like
@@ -17,7 +16,6 @@ create_latex_table.py.
 from __future__ import annotations
 
 import argparse
-import glob
 import json
 import os
 import sys
@@ -36,7 +34,7 @@ def load_records(paths):
             text = f.read()
         try:
             whole = json.loads(text)
-            # driver envelope (BENCH_r*.json): the record is under "parsed"
+            # driver envelope: the record is under "parsed"
             if isinstance(whole, dict) and "parsed" in whole:
                 whole = whole["parsed"]  # may be null for a failed run
             items = whole if isinstance(whole, list) else [whole]
@@ -53,14 +51,6 @@ def load_records(paths):
             except json.JSONDecodeError:
                 pass
     return recs
-
-
-def default_paths():
-    stamps = sorted(glob.glob("perf_records/*/"))
-    if stamps:
-        return [stamps[-1]]
-    singles = sorted(glob.glob("BENCH_r*.json"))
-    return singles[-1:] if singles else []
 
 
 def norm(rec):
@@ -96,16 +86,12 @@ def fmt_latex(rows):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("paths", nargs="*", help="jsonl/json files or record dirs")
+    ap.add_argument("paths", nargs="+", help="jsonl/json files or record dirs")
     ap.add_argument("--latex", action="store_true")
     ap.add_argument("--top", type=int, default=0, help="keep top N by GB/s")
     args = ap.parse_args(argv)
 
-    paths = args.paths or default_paths()
-    if not paths:
-        print("no benchmark records found", file=sys.stderr)
-        return 1
-    rows = [norm(r) for r in load_records(paths)]
+    rows = [norm(r) for r in load_records(args.paths)]
     rows = [r for r in rows if r["gbps"] is not None]
     order = {"device": 0, "e2e": 1, "competitor": 2}
     rows.sort(key=lambda r: (order[r["kind"]], -float(r["gbps"])))

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Multi-host runner: validate/transcode a corpus across a TPU pod slice.
+"""Multi-host runner: validate/transcode a corpus across several hosts.
 
 Launch one copy per host (the reference scales via user threads,
 benchmarks/threaded.cpp; here the unit of scaling is chips/hosts):

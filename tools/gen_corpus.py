@@ -67,6 +67,22 @@ def generate(profile, n_bytes: int, seed: int = 0, spaces=None) -> bytes:
     return data[: n_bytes] if False else data  # keep whole codepoints
 
 
+def mixed_corpus(nbytes: int) -> bytes:
+    """Mixed-language corpus of about ``nbytes`` bytes, ending on a
+    codepoint boundary: ASCII / Latin / CJK / emoji / Arabic / Cyrillic
+    (byte-class mix in the spirit of benchmarks/dataset)."""
+    block = (
+        "The quick brown fox jumps over the lazy dog. "
+        "Höfn í Hornafirði er bær á Suðausturlandi. "
+        "東京は日本の首都であり、世界最大の都市圏です。"
+        "مرحبا بالعالم، هذا نص تجريبي باللغة العربية. "
+        "Привет, мир! Это тестовый текст. "
+        "🙂🚀🌍💡🎉 emoji and 𝄞 astral chars. "
+    )
+    data = (block * (nbytes // len(block.encode()) + 1)).encode()[:nbytes]
+    return data.decode("utf-8", "ignore").encode("utf-8")
+
+
 def census(data: bytes) -> dict:
     """Byte-class census (benchmarks/dataset/README.md format)."""
     import numpy as np
